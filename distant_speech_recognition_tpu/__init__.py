@@ -1,4 +1,4 @@
-"""TPU-native distant-speech front-end framework.
+"""Batched distant-speech front-end framework.
 
 A from-scratch JAX/XLA/Pallas rebuild of the capabilities of BTK 2.0
 (kkumatani/distant_speech_recognition): oversampled DFT-modulated subband

@@ -1,4 +1,4 @@
-"""BTK 2.0 compatibility layer: the reference's pull-stream API on TPU kernels.
+"""BTK 2.0 compatibility layer: the reference's pull-stream API on the batched kernels.
 
 The reference toolkit (kkumatani/distant_speech_recognition) exposes a
 pull-based dataflow graph: every node is a ``FeatureStream`` producing one

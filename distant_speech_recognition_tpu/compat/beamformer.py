@@ -9,7 +9,7 @@ reference's method names (beamformer.i), the camelCase legacy aliases
 (``update_active_weight_vecotrs``, ``set_diagonal_looading``) so reference
 driver code ports with an import swap.
 
-All numerics are delegated to the batched TPU kernels in
+All numerics are delegated to the batched kernels in
 ``models/beamforming.py``; these classes only add the pull-stream state
 machine (channel list -> snapshot assembly -> per-bin weights -> hermitian
 mirror, SubbandDS::next beamformer.cc:1095-1157).  The per-frame GSC-RLS

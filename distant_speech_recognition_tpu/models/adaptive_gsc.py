@@ -4,7 +4,7 @@ The reference adapts the active weight vector ``wa`` per frame per bin inside
 a Python loop (SubbandGSCLMSBeamformer.__iter__ pybeamformer.py:659-762,
 SubbandGSCRLSBeamformer.__iter__ pybeamformer.py:816-898).  Here each frame
 update is one `lax.scan` step carrying pytrees shaped ``[F, ...]`` — all
-frequency bins update in parallel on the VPU/MXU; time is the only sequential
+frequency bins update in parallel; time is the only sequential
 axis.  Throughput comes from F x batch parallelism, matching the reference's
 math decision for decision (silence gating, regularization leak, quadratic
 constraints, norm capping, min-frame warmup, LMS step-size slowdown).
@@ -32,11 +32,9 @@ __all__ = [
 ]
 
 # Unrolling the frame scan amortizes the XLA while-loop trip overhead — the
-# per-step tensors ([B, F, C]-sized) are far too small to keep the chip busy,
-# so the loop is launch-bound.  Semantics are unchanged (pure codegen knob).
-# Measured on v5e (bench.py workload, time-major layout, fetch-synced):
-# B=640: 1 -> 36.6k, 2 -> 40.3k, 3 -> 40.4k, 6 -> 39.7k, 8 -> 35.7k
-# audio-s/s/chip; 3 is also within noise of the best at B=384.
+# per-step tensors ([B, F, C]-sized) are far too small to keep the device
+# busy, so the loop is launch-bound.  Semantics are unchanged (pure codegen
+# knob); the unroll factor is not tuned on the H100 yet.
 SCAN_UNROLL = max(1, int(os.environ.get("DSR_SCAN_UNROLL", "3")))
 
 
@@ -361,7 +359,7 @@ def gsc_postfilter_fused(
     Produces outputs identical to ``gsc_{lms,rls}`` followed by
     ``postfilter.zelinski_postfilter`` (the CSD recursion depends only on the
     snapshots, so the states fuse safely), but with half the sequential scan
-    steps — the launch-bound cost on TPU.
+    steps, the launch-bound cost of an XLA scan.
 
     ``X``: snapshots ``[T, ..., F, C]`` (optional leading batch dims after
     time — the time-major batched layout of `pipeline.build_pipeline`), with
@@ -369,9 +367,9 @@ def gsc_postfilter_fused(
     packed real analysis output ``[T, ..., C, M]``
     (``[Re(0..M/2) | Im(1..M/2-1)]`` lanes — the structurally-zero
     Im(DC)/Im(Nyquist) dropped, see `ops.filterbank.analysis_half_real_tm`
-    ``packed=True``); the complex snapshot is formed per step inside VMEM —
-    the big HBM snapshot transpose never happens — and the output is emitted
-    in the same packed layout ``[T, ..., M]``, ready for
+    ``packed=True``); the complex snapshot is formed per step inside the
+    loop body, so the whole spectrum is never transposed, and the output is
+    emitted in the same packed layout ``[T, ..., M]``, ready for
     `ops.filterbank.synthesis_half_real_tm`.
 
     ``wq_manifold``: [F, C] manifold for the postfilter alignment — the C++
@@ -429,13 +427,13 @@ def gsc_postfilter_fused(
         else:
             Xt, energy_t = inputs
         if real_packed:
-            # [..., C, M] packed real -> [..., F, C] complex snapshot, in
-            # VMEM (Im of DC/Nyquist are structurally zero).
+            # [..., C, M] packed real -> [..., F, C] complex snapshot
+            # (Im of DC/Nyquist are structurally zero).
             zero = jnp.zeros_like(Xt[..., :1])
             im = jnp.concatenate([zero, Xt[..., F:], zero], axis=-1)
             Xt = jnp.moveaxis(jax.lax.complex(Xt[..., :F], im), -2, -1)
         if energy is None:
-            # reference-channel frame energy computed in VMEM — no separate
+            # reference-channel frame energy computed in the step — no separate
             # dense pass over the spectrum (MultiChannelSource semantics,
             # pybeamformer.py:263-276)
             energy_t = frame_energy_half(Xt[..., 0], M)

@@ -347,7 +347,8 @@ def information_filter_aec(
     def _inv_h(M):
         w, v = jnp.linalg.eigh(M)
         inv_w = (1.0 / w).astype(v.dtype)
-        return jnp.einsum("...ij,...j,...kj->...ik", v, inv_w, jnp.conj(v))
+        return jnp.einsum("...ij,...j,...kj->...ik", v, inv_w, jnp.conj(v),
+                          precision=jax.lax.Precision.HIGHEST)
 
     class S(NamedTuple):
         R: jax.Array

@@ -1,13 +1,13 @@
 """Subband-domain beamforming, batched over all frequency bins.
 
-TPU-first reformulation of the reference beamformers.  The reference iterates
+Batched reformulation of the reference beamformers.  The reference iterates
 per frame and per frequency bin (`SubbandDS::next` beamformer.cc:1095-1157,
 `SubbandGSCRLSBeamformer.__iter__` pybeamformer.py:816-898); here snapshots
 are dense tensors ``X[..., T, F, C]`` (time, frequency bin 0..M/2, channel)
 and every per-bin small-matrix operation (covariance, inverse, generalized
 eigendecomposition, Gram-Schmidt) is vmapped/batched over all F bins — the
 per-bin independence the reference proves by construction is exactly what
-shards across TPU chips (see parallel/).
+shards across devices (see parallel/).
 
 Weight/output conventions follow the reference:
   - manifold  vs[f, c]   = exp(-j 2 pi f_k tau_c) / C      (pybeamformer.py:284-307)

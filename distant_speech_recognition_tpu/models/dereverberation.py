@@ -27,6 +27,7 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
+import jax.scipy.linalg
 from ..ops.complex_ops import ceinsum
 
 SUBBAND_FLOOR = 1.0e-3  # dereverberation.cc:144
@@ -36,32 +37,16 @@ __all__ = [
     "wpe_apply",
     "wpe",
     "wpe_multichannel",
-    "wpe_multichannel_batched",
     "band_limit_mask",
 ]
 
 
-def _gj_solve(R: jax.Array, r: jax.Array) -> jax.Array:
-    """Batched HPD solve ``R x = r`` by unrolled Gauss-Jordan elimination.
-
-    XLA's batched ``cholesky`` lowers tiny matrices (here 20x20) to a
-    sequential per-column loop with dynamic slicing that dominates the WPE
-    estimate on TPU (measured 92 ms of a 164 ms EM step at B=64 utterances,
-    33k systems); this elimination is ``n`` static steps of pure elementwise
-    ops over the whole batch — VPU-parallel, no dynamic slicing — and timed
-    ~3x faster end to end.  Diagonal pivoting without row swaps is safe for
-    the diagonally-loaded Hermitian positive-definite systems WPE builds
-    (``load_R_`` adds ``max(diag)*10^(load_db/10)``).
-
-    ``R``: [..., n, n], ``r``: [..., n] -> [..., n].
-    """
-    n = R.shape[-1]
-    A = jnp.concatenate([R, r[..., None]], axis=-1)  # [..., n, n+1]
-    for k in range(n):
-        piv = A[..., k : k + 1, :] / A[..., k : k + 1, k : k + 1]
-        A = A - A[..., :, k : k + 1] * piv
-        A = A.at[..., k, :].set(piv[..., 0, :])
-    return A[..., :, n]
+def _hpd_solve(R: jax.Array, r: jax.Array) -> jax.Array:
+    """Batched Hermitian positive-definite solve ``R x = r`` by Cholesky
+    (the reference's complex Cholesky solve, dereverberation.cc:196-197).
+    ``R``: [..., n, n], ``r``: [..., n] -> [..., n]."""
+    L = jnp.linalg.cholesky(R)
+    return jax.scipy.linalg.cho_solve((L, True), r[..., None])[..., 0]
 
 
 def band_limit_mask(F: int, band_width: float, samplerate: float):
@@ -146,9 +131,8 @@ def wpe_estimate(
         R = R * (1.0 - eye) + jnp.einsum(
             "cfp,pq->cfpq", new_diag.astype(R.dtype), eye
         )
-        # Hermitian solve per (channel, bin); Gauss-Jordan instead of
-        # cholesky/cho_solve — see _gj_solve for the TPU rationale.
-        G_new = _gj_solve(R, r)
+        # Hermitian solve per (channel, bin)
+        G_new = _hpd_solve(R, r)
         return G_new, None
 
     G0 = jnp.zeros((C, F, C * P), Y.dtype)
@@ -241,140 +225,3 @@ def wpe_multichannel(
     ``band_width`` > 0 applies the reference's band limit (`band_limit_mask`)."""
     G = wpe_estimate(Y, lowerN, upperN, iterations, load_db, diagonal_bias)
     return wpe_apply(Y, _mask_G(G, Y.shape[-1], band_width, samplerate), lowerN)
-
-
-@partial(jax.jit, static_argnums=(1, 2, 3, 4, 5, 6, 7, 8))
-def wpe_multichannel_batched(
-    X: jax.Array,
-    lowerN: int,
-    upperN: int,
-    iterations: int = 2,
-    load_db: float = -20.0,
-    diagonal_bias: float = 0.0,
-    band_width: float = 0.0,
-    samplerate: float = 16000.0,
-    interpret: bool = False,
-) -> jax.Array:
-    """`wpe_multichannel` over a whole utterance batch with the Pallas lag
-    kernel (ops/pallas_wpe.py): ``X [B, C, T, F] -> [B, C, T, F]``.
-
-    The normal-equation stats and the prediction residual never materialize
-    the ``[T, F, C*P]`` lag tensor in HBM; the per-(channel, bin) loading +
-    Gauss-Jordan solve stay in XLA (`_gj_solve`).  Numerically equal to the
-    chunked vmap of `wpe_multichannel` up to f32 matmul reassociation
-    (tests/test_pallas_wpe.py), which itself is golden-tested against the
-    compiled reference (tests/test_cpp_golden.py wpe tests).
-    """
-    from ..ops.pallas_wpe import FL, _tm_planes, wpe_resid_from_planes
-
-    B, C, T, F = X.shape
-    P = upperN - lowerN + 1
-    nG = -(-F // FL)
-    # subband planes once; both the stats and the residual kernels read them
-    Yr, Yi = _tm_planes(X, nG)
-    G = _wpe_em_planes(Yr, Yi, C, T, F, lowerN, P, iterations, load_db,
-                       diagonal_bias, band_width, samplerate, interpret,
-                       X.dtype)
-    return wpe_resid_from_planes(Yr, Yi, G, C, T, F, lowerN, P, interpret)
-
-
-def _wpe_em_planes(Yr, Yi, C, T, F, lowerN, P, iterations, load_db,
-                   diagonal_bias, band_width, samplerate, interpret, dtype, bf16=False):
-    """EM filter estimation from subband planes: the apply-ready (tap-
-    truncated, band-masked) filters ``G [B, C, F, C*P]``."""
-    from ..ops.pallas_wpe import gj_solve_pallas, wpe_stats_from_planes
-
-    B = Yr.shape[0]
-    CP = C * P
-    load = 10.0 ** (load_db / 10.0)
-
-    # bins-minor [B, C, CP, CP, L] layout throughout: lane-efficient for
-    # the elementwise loading, and the Gauss-Jordan runs VMEM-resident
-    # (gj_solve_pallas); zero-pad lanes (bins >= F) solve garbage that
-    # never mixes across lanes and is cropped before the residual pass
-    eye_l = jnp.eye(CP, dtype=jnp.float32)[..., None]  # [CP, CP, 1]
-    eye_b = eye_l.astype(bool)
-    G = jnp.zeros((B, C, F, CP), dtype)
-    for it in range(iterations):
-        R, r = wpe_stats_from_planes(
-            Yr, Yi, G, C, T, F, lowerN, P, interpret,
-            has_g=(it > 0), bins_minor=True, bf16=bf16,
-        )
-        R = R + diagonal_bias * eye_l
-        # diagonal loading via broadcast masks (advanced-index gather +
-        # .at[].set scatter lowered poorly on TPU at these shapes)
-        diag = jnp.where(eye_b, jnp.abs(R), 0.0).sum(-2)  # [B, C, CP, L]
-        max_diag = jnp.max(diag, axis=-2, keepdims=True)
-        new_diag = (diag + max_diag * load).astype(R.dtype)
-        R = jnp.where(eye_b, new_diag[..., :, None, :], R)
-        G_l = gj_solve_pallas(R, r, interpret)  # [B, C, CP, L]
-        G = jnp.moveaxis(G_l, -1, -2)[:, :, :F, :]
-
-    # apply-time tap truncation quirk (see wpe_apply) + band limit
-    if lowerN > 0:
-        tap_ok = jnp.arange(P) < P - lowerN
-        G = G * jnp.tile(tap_ok, C).astype(G.dtype)
-    mask = band_limit_mask(F, band_width, samplerate)
-    if mask is not None:
-        G = G * mask[:, None].astype(G.dtype)
-    return G
-
-
-@partial(jax.jit, static_argnums=(1, 2, 3, 4, 5, 6, 7, 8, 9, 10))
-def wpe_multichannel_packed_tm(
-    Yp: jax.Array,
-    F: int,
-    lowerN: int,
-    upperN: int,
-    iterations: int = 2,
-    load_db: float = -20.0,
-    diagonal_bias: float = 0.0,
-    band_width: float = 0.0,
-    samplerate: float = 16000.0,
-    interpret: bool = False,
-    bf16_stats: bool = False,
-) -> jax.Array:
-    """`wpe_multichannel_batched` on PACKED time-major frames:
-    ``Yp [Tf, B, C, M]`` with the ``[Re(0..M/2) | Im(1..M/2-1)]`` lane
-    layout -> packed [Tf, B, C, M].
-
-    Builds the kernel's bin-sublane/time-lane planes straight from the
-    packed lanes (one f32 transpose instead of unpack -> complex ->
-    transpose -> re/im split) and repacks the residual planes directly —
-    the complex [Tf, B, C, F] intermediate never exists.
-    """
-    from ..ops.pallas_wpe import FL, _call
-
-    Tf, B, C, M = Yp.shape
-    P = upperN - lowerN + 1
-    nG = -(-F // FL)
-    W = -(-Tf // 128) * 128
-
-    t1 = jnp.moveaxis(Yp, 0, 3)  # [B, C, M, Tf]
-    t1 = jnp.pad(t1, ((0, 0), (0, 0), (0, 0), (0, W - Tf)))
-    re = t1[:, :, :F, :]
-    zero = jnp.zeros_like(t1[:, :, :1, :])
-    im = jnp.concatenate([zero, t1[:, :, F:, :], zero], axis=2)
-
-    def group(x):
-        x = jnp.pad(x, ((0, 0), (0, 0), (0, nG * FL - F), (0, 0)))
-        x = x.reshape(B, C, nG, FL, W)
-        return jnp.moveaxis(x, 2, 1).reshape(B, nG, C * FL, W)
-
-    Yr, Yi = group(re), group(im)
-    G = _wpe_em_planes(Yr, Yi, C, Tf, F, lowerN, P, iterations, load_db,
-                       diagonal_bias, band_width, samplerate, interpret,
-                       jnp.complex64, bf16=bf16_stats)
-
-    from ..ops.pallas_wpe import _g_planes
-
-    Gr, Gi = _g_planes(G, nG)
-    rr, ri = _call(Yr, Yi, Gr, Gi, C, lowerN, P, Tf, "resid", interpret)
-
-    def ungroup(x):
-        x = x.reshape(B, nG, C, FL, W)
-        return jnp.moveaxis(x, 2, 1).reshape(B, C, nG * FL, W)[:, :, :F, :]
-
-    rr, ri = ungroup(rr), ungroup(ri)
-    packed = jnp.concatenate([rr, ri[:, :, 1:F - 1, :]], axis=2)  # [B,C,M,W]
-    return jnp.moveaxis(packed, 3, 0)[:Tf]  # [Tf, B, C, M]

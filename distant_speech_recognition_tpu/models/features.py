@@ -129,7 +129,8 @@ def mel_matrix(
 
 def mel_feature(power: jax.Array, mel_mat) -> jax.Array:
     """Apply the mel filterbank: [..., T, pow_n] -> [..., T, filter_n]."""
-    return jnp.einsum("fp,...tp->...tf", jnp.asarray(mel_mat, power.dtype), power)
+    return jnp.einsum("fp,...tp->...tf", jnp.asarray(mel_mat, power.dtype), power,
+                      precision=jax.lax.Precision.HIGHEST)
 
 
 def log_feature(x: jax.Array, m: float = 1.0, a: float = 1.0,
@@ -180,7 +181,8 @@ def dct_matrix(ncep: int, nmel: int, dct_type: int = 1) -> np.ndarray:
 def cepstral_feature(log_mel: jax.Array, ncep: int = 13, dct_type: int = 1) -> jax.Array:
     """Log-mel -> cepstra (CepstralFeature, feature.cc:2370-2410)."""
     C = dct_matrix(ncep, log_mel.shape[-1], dct_type)
-    return jnp.einsum("cf,...tf->...tc", jnp.asarray(C, log_mel.dtype), log_mel)
+    return jnp.einsum("cf,...tf->...tc", jnp.asarray(C, log_mel.dtype), log_mel,
+                      precision=jax.lax.Precision.HIGHEST)
 
 
 def mean_subtraction(feat: jax.Array, dev_norm: float = 0.0) -> jax.Array:
@@ -341,7 +343,7 @@ def vtln_ff(power: jax.Array, ratio: float, edge: float = 1.0) -> jax.Array:
     """Version-2 VTLN applied over frames: ``power`` [..., T, N] ->
     [..., T, N] via :func:`vtln_ff_matrix`."""
     M = jnp.asarray(vtln_ff_matrix(power.shape[-1], ratio, edge), power.dtype)
-    return power @ M.T
+    return jnp.matmul(power, M.T, precision=jax.lax.Precision.HIGHEST)
 
 
 def alog_feature(x: jax.Array, m: float = 1.0, a: float = 4.0,

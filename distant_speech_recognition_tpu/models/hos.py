@@ -10,7 +10,7 @@ The reference runs a scipy/pygsl conjugate-gradient per bin with
 hand-written gradients (fun_hos_bf/dfun_hos_bf, pybeamformer.py:1546-1593);
 here the objective is evaluated for ALL bins at once over ``[T, F, C]``
 observations and jax.grad + Adam ascends every bin in parallel — the same
-stationary points, TPU-shaped.
+stationary points, batch-shaped.
 
 Conventions (calc_gsc_output_f, pybeamformer.py:1472-1487):
   woH[s, f] = wuH[s, f] - conj(wa[s, f]) . BmH[s, f]       (active path)

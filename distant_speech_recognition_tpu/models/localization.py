@@ -93,7 +93,7 @@ def tdoa_feature_vectors(
     ``delays``/``heights``: ``[..., T, P]`` per mic pair.  Returns
     ``(delays, valid_mask [..., T, P], frame_valid [..., T])`` — a fixed-size
     masked representation of the reference's variable-length observation
-    lists (TPU-friendly static shapes).
+    lists (static shapes for jit).
     """
     valid = heights > threshold
     frame_valid = jnp.sum(valid.astype(jnp.int32), axis=-1) >= minimum_pairs
@@ -553,7 +553,8 @@ def mcc_localize(x: jax.Array, delay_grid, num_best: int = 1,
         jnp.broadcast_to(xp[None], (G, C, xp.shape[-1])), idx, axis=-1
     )
     mean = jnp.mean(aligned, axis=-1, keepdims=True)
-    Rc = jnp.einsum("gct,gdt->gcd", aligned - mean, aligned - mean) / T
+    Rc = jnp.einsum("gct,gdt->gcd", aligned - mean, aligned - mean,
+                    precision=jax.lax.Precision.HIGHEST) / T
     diag = jnp.diagonal(Rc, axis1=-2, axis2=-1)
     if normalize_variance:
         sign, ldet = jnp.linalg.slogdet(Rc)

@@ -33,7 +33,7 @@ def semnb_deviation_derivative(P: jax.Array, order: int, fftlen: int) -> jax.Arr
     The reference derives the chain rule by hand through an eigendecomposition
     of the autocorrelation matrix (eqns. 8-28 of the SEMNB paper); here the
     identical map is expressed functionally and differentiated with
-    ``jax.jacfwd`` — the TPU-native formulation.  The map, matching the
+    ``jax.jacfwd`` — the batched formulation.  The map, matching the
     reference's conventions exactly (including the 2/fftLen factor applied
     to ALL bins, spectralestimator.cc:359-363, 396-405):
 

@@ -17,7 +17,13 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from ..ops.filterbank import analysis_snapshots_half, synthesis_half
+from ..ops.filterbank import (
+    analysis_half_real_tm,
+    analysis_snapshots_half,
+    synthesis_half,
+    synthesis_half_tm,
+)
+from ..utils.jaxenv import host_device
 from . import beamforming as bf
 from .localization import srp_dsbla, srp_phat, srp_phat_steering_table
 
@@ -64,7 +70,7 @@ def build_steered_pipeline(
     fs = cfg.samplerate
     mpos = np.asarray(mpos, np.float64)
 
-    with jax.default_device(jax.local_devices(backend="cpu")[0]):
+    with host_device():
         steering, grid = srp_phat_steering_table(mpos, M, fs, thetas, phis, sspeed)
         delay_table = np.stack(
             [calc_ca_delays(mpos, p, t, sspeed) for t, p in np.asarray(grid)]
@@ -72,7 +78,7 @@ def build_steered_pipeline(
     if doa_protocol not in ("srp_phat", "dsbla"):
         raise ValueError(f"unknown doa_protocol {doa_protocol!r}")
     if doa_protocol == "dsbla":
-        with jax.default_device(jax.local_devices(backend="cpu")[0]):
+        with host_device():
             # wq steering table (e^{-j.}/C convention, calcMainlobe)
             wq_table = np.stack(
                 [np.asarray(bf.array_manifold(M, fs, d)) for d in delay_table]
@@ -132,27 +138,20 @@ def build_steered_pipeline(
 
         return synthesis_half(Y, g, cfg.fb), doa
 
-    # ---- batched paired-Pallas fast path (round 5) --------------------
-    # For the BASELINE config-5 chain (gsc_rls + zelinski, srp_phat DOA)
-    # the vmap-of-XLA-scan above is launch-bound (the round-4 config5
-    # number); this path runs ONE fused analysis kernel, a batched SRP
-    # einsum, traced per-utterance steering, and the paired Pallas scan
-    # with per-row weight planes (gsc_rls_zelinski_steered_pallas).
-    pallas_ok = (
-        cfg.beamformer == "gsc_rls"
-        and cfg.postfilter == "zelinski"
+    # On a GPU backend the config-5 chain (gsc_rls + zelinski, srp_phat DOA)
+    # runs batched and time-major: XLA analysis, one SRP einsum over the
+    # steering table, traced per-utterance steering, and the recursion
+    # kernel with per-lane weights (models/scan_kernel.py), wherever
+    # `pipeline.path_flags` picks the kernel for the same config.
+    from .pipeline import path_flags
+
+    if (
+        path_flags(cfg, mpos.shape[0])["scan_kernel"]
         and doa_protocol == "srp_phat"
         and bin_sharding is None
-        and M % 256 == 0
-        and cfg.fb.D % 128 == 0
-        and min_bin == 1 and max_bin is None
-    )
-    from .pipeline import PALLAS_FB, PALLAS_SCAN
-
-    on_tpu = jax.default_backend() not in ("cpu",)
-    if pallas_ok and PALLAS_FB and PALLAS_SCAN and on_tpu:
-        return _build_steered_pallas(
-            cfg, h, g, steering, grid_j, delay_table, fs, M, interpret=False)
+    ):
+        return _build_steered_tm(cfg, h, g, steering, grid_j, delay_table, fs,
+                                 min_bin, max_bin)
 
     @jax.jit
     def enhance(x):
@@ -162,48 +161,36 @@ def build_steered_pipeline(
     return enhance
 
 
-def _build_steered_pallas(cfg, h, g, steering, grid_j, delay_table, fs, M,
-                          interpret=False):
-    """Batched time-major steered chain: analysis (one Pallas kernel) ->
-    SRP-PHAT DOA (one MXU einsum over the steering table) -> traced
-    per-utterance manifold/blocking weights -> paired Pallas GSC-RLS +
-    Zelinski with per-row planes -> fused synthesis.  Equal to the vmapped
-    `_one` chain (tests/test_steered_pallas.py)."""
-    from ..ops.pallas_kernels import analysis_tm_fused, synthesis_tm_fused
-    from ..ops.filterbank import analysis_half_real_tm, synthesis_half_real_tm
-    from .adaptive_gsc import GSCRLSConfig  # noqa: F401 (type reference)
-    from .pallas_fused_scan import gsc_rls_zelinski_steered_pallas
+def _build_steered_tm(cfg, h, g, steering, grid_j, delay_table, fs, min_bin,
+                      max_bin, interpret=False):
+    """Batched time-major steered chain: analysis -> SRP-PHAT DOA -> traced
+    per-utterance manifold/blocking weights -> GSC-RLS + Zelinski kernel
+    with per-lane weights -> synthesis.  Equal to the vmapped `_one` chain
+    (tests/test_scan_kernel.py)."""
+    from .scan_kernel import gsc_rls_zelinski
 
-    Mh = M // 2
+    M = cfg.fb.M
+    F = M // 2 + 1
     hj = jnp.asarray(h, jnp.float32)
     gj = jnp.asarray(g, jnp.float32)
 
     @jax.jit
     def enhance(x):
         """x: [B, C, T] -> (y [B, T_out], doa [B, 2])."""
-        if interpret:
-            Yp = analysis_half_real_tm(x, hj, cfg.fb, packed=True)
-        else:
-            Yp = analysis_tm_fused(x, hj, cfg.fb, packed=True)
-        # complex snapshots [Tf, B, F, C] from the packed lanes (DOA only)
-        re = Yp[..., : Mh + 1]
-        z = jnp.zeros(Yp.shape[:-1] + (1,), Yp.dtype)
-        im = jnp.concatenate([z, Yp[..., Mh + 1 :], z], axis=-1)
-        X = jnp.swapaxes(jax.lax.complex(re, im), 2, 3)
-        srp = srp_phat(jnp.moveaxis(X, 0, 1), steering, 1, None)  # [B,Tf,G]
+        Yr = analysis_half_real_tm(x, hj, cfg.fb)  # [Tf, B, C, 2F]
+        X = jax.lax.complex(Yr[..., :F], Yr[..., F:])  # [Tf, B, C, F]
+        srp = srp_phat(jnp.moveaxis(jnp.swapaxes(X, 2, 3), 0, 1), steering,
+                       min_bin, max_bin)  # [B, Tf, G]
         gidx = jnp.argmax(jnp.sum(srp, axis=1), axis=-1)  # [B]
         delays = delay_table[gidx]  # [B, C]
-        vs = jax.vmap(lambda d: bf.array_manifold(M, fs, d))(delays)
-        wq_b = jnp.conj(vs)  # [B, F, C]
+        vs = jax.vmap(lambda d: bf.array_manifold(M, fs, d))(delays)  # [B, F, C]
         bm_b = jnp.swapaxes(bf.blocking_matrix(vs, cfg.Nc), -1, -2)
-        Yb = gsc_rls_zelinski_steered_pallas(
-            Yp, wq_b, bm_b, vs, cfg.rls, cfg.pf_alpha, cfg.pf_type,
-            cfg.pf_min_frames, interpret=interpret,
+        energy = bf.frame_energy_half(X[:, :, 0], M)  # [Tf, B]
+        Y = gsc_rls_zelinski(
+            Yr, energy, jnp.conj(vs), bm_b, vs, cfg.rls, cfg.pf_alpha,
+            cfg.pf_type, cfg.pf_min_frames, per_utterance=True,
+            interpret=interpret,
         )
-        if interpret:
-            y = synthesis_half_real_tm(Yb, gj, cfg.fb)
-        else:
-            y = synthesis_tm_fused(Yb, gj, cfg.fb)
-        return y, grid_j[gidx]
+        return synthesis_half_tm(Y, gj, cfg.fb), grid_j[gidx]
 
     return enhance

@@ -4,7 +4,7 @@ The reference's video subsystem is an OpenCV/ffmpeg-gated optional module
 (`#ifdef AVFORMAT` / `#ifdef OPENCV`, videofeature.h:8-10) of per-frame image
 stream nodes.  This module re-implements its numeric operations as batched,
 jit-friendly JAX functions over `[..., H, W]` float images so whole video
-clips process as one tensor on the MXU/VPU:
+clips process as one tensor:
 
 - ``video_frames``         VideoFeature (videofeature.cc:20-141): decoded
                            frames -> grayscale (mode 1) or stacked R/G/B

@@ -7,8 +7,8 @@ localization.h:72-115, signal-power averaging):
     y_t = a_t * y_{t-1} + b_t
 
 A sequential `lax.scan` serializes T steps; `jax.lax.associative_scan`
-computes the same outputs in O(log T) depth, which matters on TPU where each
-tiny scan step is launch-bound.  Used by the postfilters; numerics agree
+computes the same outputs in O(log T) depth instead of T tiny
+launch-bound steps.  Used by the postfilters; numerics agree
 with the sequential form to float tolerance.
 """
 

@@ -1,10 +1,10 @@
 """Square-root (Cholesky/QR) propagation kernels.
 
-TPU equivalents of the reference's square_root/ subsystem
+Batched equivalents of the reference's square_root/ subsystem
 (square_root/square_root.h:20-80: complex Cholesky forward/backward
 substitution, rank-1 Cholesky updates, covariance/information square-root
 propagation via Givens rotations).  Givens sweeps are sequential scalar
-algorithms; on TPU the same triangularizations are one batched QR/Cholesky
+algorithms; here the same triangularizations are one batched QR/Cholesky
 per bin — identical propagated factors up to unitary column phases.
 """
 

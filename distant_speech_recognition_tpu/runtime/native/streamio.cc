@@ -1,6 +1,6 @@
 // Native host-side audio stream runtime.
 //
-// TPU-native counterpart of the reference's C++ stream/IO layer
+// Native counterpart of the reference's C++ stream/IO layer
 // (feature/feature.cc SampleFeature/IterativeSampleFeature + common/
 // mach_ind_io.cc): high-throughput WAV ingest, int16 -> normalized float32
 // conversion, de-interleaving, block framing with zero padding, and a

@@ -239,7 +239,7 @@ def resample_native(x: np.ndarray, src_rate: int, dst_rate: int,
                     half_taps: int = 32, num_threads: int = 0) -> np.ndarray:
     """Windowed-sinc sample-rate conversion on the host
     (SamplerateConversionFeature, feature/feature.h:775-809 — the reference
-    wraps libsamplerate; this is the native TPU-host equivalent).
+    wraps libsamplerate; this is the native host equivalent).
 
     ``x``: float32 ``[..., T]``; returns ``[..., floor(T*dst/src)]``.  The
     Blackman-Harris-windowed sinc doubles as the anti-alias filter on

@@ -26,6 +26,8 @@ import sys
 
 import numpy as np
 
+from ..utils.jaxenv import setup_compile_cache
+
 SOUNDSPEED = 343740.0  # mm/s (beamformerMLC.cc:14)
 
 
@@ -125,7 +127,7 @@ def run(audio_list, mic_pos_file, coeff_file, src_pos_file, out_path,
 def build_parser():
     p = argparse.ArgumentParser(
         description="GSC beamforming with multiple linear constraints "
-                    "(TPU-native mirror of beamformerMLC)")
+                    "(batched mirror of beamformerMLC)")
     p.add_argument("-A", "--audioList", default="./testL")
     p.add_argument("-P", "--micPosFile", default="./array.txt")
     p.add_argument("-C", "--coeffFile", default="./M256-m4-r1")
@@ -137,6 +139,7 @@ def build_parser():
 
 
 def main(argv=None):
+    setup_compile_cache()
     a = build_parser().parse_args(argv)
     run(a.audioList, a.micPosFile, a.coeffFile, a.srcPosFile, a.outputFile,
         M=a.M, target_index=a.target_index)

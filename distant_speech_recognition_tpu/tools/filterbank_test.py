@@ -9,6 +9,8 @@ import os
 
 import numpy as np
 
+from ..utils.jaxenv import setup_compile_cache
+
 
 def run(analysis_filter_path, synthesis_filter_path, M, m, r, audio_path, out_path,
         samplerate=16000):
@@ -41,6 +43,7 @@ def run(analysis_filter_path, synthesis_filter_path, M, m, r, audio_path, out_pa
 
 
 def main():
+    setup_compile_cache()
     ap = argparse.ArgumentParser(description="oversampled DFT filterbank reconstruction test")
     ap.add_argument("-a", dest="analysis_filter_path", default=None)
     ap.add_argument("-s", dest="synthesis_filter_path", default=None)

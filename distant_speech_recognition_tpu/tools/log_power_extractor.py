@@ -9,6 +9,8 @@ import pickle
 
 import numpy as np
 
+from ..utils.jaxenv import setup_compile_cache
+
 
 def run(input_path, output_path, D=160, fft_len=256, samplerate=None):
     from ..models.features import (
@@ -37,6 +39,7 @@ def run(input_path, output_path, D=160, fft_len=256, samplerate=None):
 
 
 def main():
+    setup_compile_cache()
     ap = argparse.ArgumentParser(description="log power feature extraction")
     ap.add_argument("-i", dest="input_path", required=True)
     ap.add_argument("-o", dest="output_path", default="log_power.pickle")

@@ -8,6 +8,8 @@ import os
 
 import numpy as np
 
+from ..utils.jaxenv import setup_compile_cache
+
 
 def run(input_audio_paths, out_ark, samplerate=16000, ncep=13, filter_n=30):
     from ..models.features import mfcc
@@ -30,6 +32,7 @@ def run(input_audio_paths, out_ark, samplerate=16000, ncep=13, filter_n=30):
 
 
 def main():
+    setup_compile_cache()
     ap = argparse.ArgumentParser(description="MFCC extraction to Kaldi ark")
     ap.add_argument("-i", dest="input_audio_paths", nargs="+", required=True)
     ap.add_argument("-o", dest="out_ark", default="out/mfcc.feat.ark")

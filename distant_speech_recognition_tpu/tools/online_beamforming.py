@@ -10,6 +10,8 @@ import os
 
 import numpy as np
 
+from ..utils.jaxenv import setup_compile_cache
+
 
 def run(analysis_filter_path, synthesis_filter_path, M, m, r,
         input_audio_paths, out_path, ap_conf, samplerate=16000):
@@ -47,7 +49,7 @@ def run(analysis_filter_path, synthesis_filter_path, M, m, r,
 
 
 def build_parser():
-    parser = argparse.ArgumentParser(description="run subband beamforming (TPU-native)")
+    parser = argparse.ArgumentParser(description="run subband beamforming (batched JAX)")
     parser.add_argument("-a", dest="analysis_filter_path", default=None)
     parser.add_argument("-s", dest="synthesis_filter_path", default=None)
     parser.add_argument("-M", dest="M", default=256, type=int)
@@ -60,6 +62,7 @@ def build_parser():
 
 
 def main():
+    setup_compile_cache()
     args = build_parser().parse_args()
     if args.ap_conf_path is None:
         ap_conf = {

@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import argparse
 
+from ..utils.jaxenv import setup_compile_cache
+
 
 def run(original_path, enhanced_path, M=64, r=1, window_type=1,
         begin=0, end=-1, normalization_option=0):
@@ -48,6 +50,7 @@ def run(original_path, enhanced_path, M=64, r=1, window_type=1,
 
 
 def main():
+    setup_compile_cache()
     ap = argparse.ArgumentParser(description="objective quality assessment")
     ap.add_argument("-1", dest="original", required=True)
     ap.add_argument("-2", dest="enhanced", required=True)

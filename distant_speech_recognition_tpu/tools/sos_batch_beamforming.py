@@ -12,6 +12,8 @@ import pickle
 
 import numpy as np
 
+from ..utils.jaxenv import setup_compile_cache
+
 
 def _load_tfmask(path):
     """Load a TF-mask file: a SEQUENCE of pickled per-frame band-activity
@@ -117,6 +119,7 @@ def run(M, m, r, input_audio_paths, out_path, ap_conf, samplerate=16000):
 
 
 def main():
+    setup_compile_cache()
     ap = argparse.ArgumentParser(description="SOS batch beamforming (SMI-MVDR/BMVDR/GEV)")
     ap.add_argument("-M", dest="M", default=256, type=int)
     ap.add_argument("-m", dest="m", default=4, type=int)

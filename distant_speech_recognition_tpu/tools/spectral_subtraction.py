@@ -8,6 +8,8 @@ import os
 
 import numpy as np
 
+from ..utils.jaxenv import setup_compile_cache
+
 
 def run(input_path, out_path, M=256, m=4, r=1, noise_seconds=1.0,
         ft=1.0, flooring=0.001, samplerate=16000):
@@ -33,6 +35,7 @@ def run(input_path, out_path, M=256, m=4, r=1, noise_seconds=1.0,
 
 
 def main():
+    setup_compile_cache()
     ap = argparse.ArgumentParser(description="spectral subtraction")
     ap.add_argument("-i", dest="input_path", required=True)
     ap.add_argument("-o", dest="out_path", default="out/ss.wav")

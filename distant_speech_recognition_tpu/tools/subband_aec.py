@@ -9,6 +9,8 @@ import os
 
 import numpy as np
 
+from ..utils.jaxenv import setup_compile_cache
+
 
 def run(M, m, r, played_path, recorded_path, out_path, conf, samplerate=16000):
     from ..models import aec
@@ -55,6 +57,7 @@ def run(M, m, r, played_path, recorded_path, out_path, conf, samplerate=16000):
 
 
 def main():
+    setup_compile_cache()
     ap = argparse.ArgumentParser(description="subband AEC")
     ap.add_argument("-M", dest="M", default=256, type=int)
     ap.add_argument("-m", dest="m", default=4, type=int)

@@ -11,6 +11,8 @@ import os
 
 import numpy as np
 
+from ..utils.jaxenv import setup_compile_cache
+
 
 def run(M, m, r, input_audio_paths, out_prefix, conf, samplerate=16000):
     from ..models.dereverberation import wpe, wpe_multichannel
@@ -48,6 +50,7 @@ def run(M, m, r, input_audio_paths, out_prefix, conf, samplerate=16000):
 
 
 def main():
+    setup_compile_cache()
     ap = argparse.ArgumentParser(description="subband WPE dereverberation")
     ap.add_argument("-M", dest="M", default=256, type=int)
     ap.add_argument("-m", dest="m", default=4, type=int)

@@ -8,6 +8,8 @@ import os
 
 import numpy as np
 
+from ..utils.jaxenv import setup_compile_cache
+
 
 def run(input_paths, out_path):
     from ..utils.wavio import read_wav, write_wav
@@ -28,6 +30,7 @@ def run(input_paths, out_path):
 
 
 def main():
+    setup_compile_cache()
     ap = argparse.ArgumentParser(description="merge mono wavs into one multichannel wav")
     ap.add_argument("-i", dest="input_paths", nargs="+", required=True)
     ap.add_argument("-o", dest="out_path", required=True)

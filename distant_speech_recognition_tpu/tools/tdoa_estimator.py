@@ -9,6 +9,8 @@ import os
 
 import numpy as np
 
+from ..utils.jaxenv import setup_compile_cache
+
 
 def run(input_audio_paths, out_path, ap_conf, samplerate=16000):
     from ..models import localization as loc
@@ -53,6 +55,7 @@ def run(input_audio_paths, out_path, ap_conf, samplerate=16000):
 
 
 def main():
+    setup_compile_cache()
     ap = argparse.ArgumentParser(description="GCC-PHAT TDOA estimation")
     ap.add_argument("-i", dest="input_audio_paths", nargs="+", required=True)
     ap.add_argument("-o", dest="out_path", default="out/tdoa.json")

@@ -2,7 +2,7 @@
 
 The reference has no processing-state checkpointing (SURVEY §5.4: persisted
 artifacts are only prototype pickles, beamformer weight files and Kaldi arks).
-The TPU build's streaming states are explicit pytrees (models/streaming.py),
+This package's streaming states are explicit pytrees (models/streaming.py),
 so checkpoint/resume is a first-class capability: flatten the pytree to named
 numpy arrays in one ``.npz`` plus a tiny JSON treedef, reload anywhere.
 """

@@ -1,6 +1,6 @@
 /* Golden-output generator: drives the UNMODIFIED reference BTK 2.0 C++ code
  * (/root/reference/btk20_src, compiled against the GSL shim in ../shim)
- * over raw sample files and dumps the results, so the TPU framework's
+ * over raw sample files and dumps the results, so the JAX framework's
  * outputs can be asserted allclose against the true reference — not against
  * transliterations that share authorship with the implementation under test.
  *

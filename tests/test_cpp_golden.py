@@ -622,8 +622,8 @@ def test_srp_dsbla_matches_cpp(gbin, protos, cmu, tmp_path):
 
 
 def test_gsc_zelinski_float64_csd_budget(gbin, protos, cmu, la_delays, tmp_path):
-    """Error-budget companion to test_gsc_zelinski_matches_cpp (VERDICT r2
-    weakness #6).  Investigating this found the 55-60 dB plateau was NOT
+    """Error-budget companion to test_gsc_zelinski_matches_cpp.  Investigating
+    its 55-60 dB plateau found it was NOT
     float32 accumulation but two semantic off-by-ones in the postfilter
     gates (pre-increment frame_no_: EMA engages on the 3rd call, apply on
     min_frames+1) — fixed in round 3, raising the float32 chain itself to

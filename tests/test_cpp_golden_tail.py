@@ -80,7 +80,7 @@ def cmu2(tmp_path_factory):
 
 def test_mfcc_chain_matches_cpp(tbin, speech, tmp_path):
     """SampleFeature -> Hamming -> FFT -> SpectralPower -> Mel -> Log ->
-    Cepstral vs the batched TPU chain (models/features.py)."""
+    Cepstral vs the batched chain (models/features.py)."""
     import jax.numpy as jnp
 
     from distant_speech_recognition_tpu.models import features as feat
@@ -256,7 +256,7 @@ def test_gcc_family_matches_cpp(tbin, cmu2, kind, mode, tmp_path):
 
 def test_spectral_subtraction_matches_cpp(tbin, speech, tmp_path):
     """Analysis -> SpectralSubtractor (trainN frames of noise stats, then
-    subtraction) -> synthesis vs the batched TPU chain."""
+    subtraction) -> synthesis vs the batched chain."""
     import jax.numpy as jnp
 
     from distant_speech_recognition_tpu import ops

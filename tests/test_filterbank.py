@@ -106,45 +106,6 @@ def test_stft_analysis_shape(rng):
     np.testing.assert_allclose(out[5, 1:], np.conj(out[5, 1:][::-1]), atol=1e-3)
 
 
-def test_pallas_analysis_matches_xla(rng):
-    """The Pallas polyphase kernel (interpreter mode on CPU) reproduces the
-    XLA analysis path exactly."""
-    from distant_speech_recognition_tpu.ops.filterbank import analysis_pallas
-
-    for (M, m, r, dc) in [(8, 4, 1, 2), (16, 2, 0, 1), (8, 4, 2, 0)]:
-        params = FilterbankParams(M=M, m=m, r=r, delay_compensation_type=dc)
-        h = rng.standard_normal(M * m) * 0.1
-        x = rng.standard_normal(params.D * 23 + 7).astype(np.float32)
-        want = np.asarray(analysis(x, h, params))
-        got = np.asarray(analysis_pallas(x, h, params, interpret=True))
-        np.testing.assert_allclose(got, want, atol=2e-5), (M, m, r, dc)
-
-
-def test_pallas_analysis_batched(rng):
-    from distant_speech_recognition_tpu.ops.filterbank import analysis_pallas
-
-    params = FilterbankParams(M=8, m=4, r=1)
-    h = rng.standard_normal(32) * 0.1
-    x = rng.standard_normal((2, 3, 300)).astype(np.float32)
-    want = np.asarray(analysis(x, h, params))
-    got = np.asarray(analysis_pallas(x, h, params, interpret=True))
-    np.testing.assert_allclose(got, want, atol=2e-5)
-
-
-def test_synthesis_pallas_matches_xla():
-    """Pallas synthesis FIR (interpret mode) == XLA synthesis path."""
-    import jax.numpy as jnp
-    from distant_speech_recognition_tpu.ops.filterbank import synthesis, synthesis_pallas
-
-    p = FilterbankParams(M=128, m=4, r=1)
-    rng = np.random.default_rng(2)
-    g = rng.standard_normal(p.N).astype(np.float32) * 0.1
-    Y = (rng.standard_normal((40, p.M)) + 1j * rng.standard_normal((40, p.M))).astype(np.complex64)
-    ref = np.asarray(synthesis(jnp.asarray(Y), jnp.asarray(g), p))
-    pal = np.asarray(synthesis_pallas(jnp.asarray(Y), jnp.asarray(g), p, interpret=True))
-    np.testing.assert_allclose(pal, ref, atol=2e-4)
-
-
 @pytest.mark.parametrize("M,m,r,dc", CONFIGS)
 def test_analysis_half_matches_full(M, m, r, dc, rng):
     """analysis_half == analysis restricted to bins 0..M/2 (rfft identity)."""

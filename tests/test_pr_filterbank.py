@@ -1,5 +1,7 @@
 """Perfect-reconstruction cosine-modulated filterbank tests."""
 
+import os
+
 import numpy as np
 import pytest
 
@@ -64,7 +66,7 @@ def test_pr_analysis_matches_stream():
     """Batched PR analysis == frame-by-frame ring-buffer simulation."""
     import sys
 
-    sys.path.insert(0, "/root/repo/tests")
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from reference_stream import StreamPRAnalysis
 
     rng = np.random.default_rng(5)
@@ -81,7 +83,7 @@ def test_pr_analysis_matches_stream():
 def test_pr_synthesis_matches_stream():
     import sys
 
-    sys.path.insert(0, "/root/repo/tests")
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from reference_stream import StreamPRSynthesis
 
     rng = np.random.default_rng(6)
