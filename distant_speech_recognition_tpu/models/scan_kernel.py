@@ -275,9 +275,7 @@ def _make_kernel(cfg, C: int, Bc: int, F: int, Tf: int, L: int, block: int,
 
 def gsc_rls_zelinski_lanes(X, energy, wq, bm, ta, cfg, pf_alpha: float = 0.6,
                            pf_type: int = 1, pf_min_frames: int = 0,
-                           interpret: bool = False, block: int = BLOCK,
-                           num_warps: int = NUM_WARPS,
-                           num_stages: int = NUM_STAGES):
+                           interpret: bool = False, block: int = BLOCK):
     """The recursion kernel on the lane layout of the module docstring.
 
     ``X [Tf, C, 2, L]``, ``energy [Tf, U]`` with ``L = U * F``, weight
@@ -299,8 +297,8 @@ def gsc_rls_zelinski_lanes(X, energy, wq, bm, ta, cfg, pf_alpha: float = 0.6,
         out_shape=jax.ShapeDtypeStruct((Tf, 2, L), jnp.float32),
         grid=(pl.cdiv(L, block),),
         backend="triton",
-        compiler_params=plgpu.CompilerParams(num_warps=num_warps,
-                                             num_stages=num_stages),
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS,
+                                             num_stages=NUM_STAGES),
         interpret=interpret,
         name="gsc_rls_zelinski",
     )(X.astype(jnp.float32), energy.astype(jnp.float32), wq, bm, ta)

@@ -162,11 +162,11 @@ def build_steered_pipeline(
 
 
 def _build_steered_tm(cfg, h, g, steering, grid_j, delay_table, fs, min_bin,
-                      max_bin, interpret=False):
+                      max_bin):
     """Batched time-major steered chain: analysis -> SRP-PHAT DOA -> traced
     per-utterance manifold/blocking weights -> GSC-RLS + Zelinski kernel
     with per-lane weights -> synthesis.  Equal to the vmapped `_one` chain
-    (tests/test_scan_kernel.py)."""
+    (tests/test_routes.py::test_steered_route_matches_vmap_chain)."""
     from .scan_kernel import gsc_rls_zelinski
 
     M = cfg.fb.M
@@ -189,7 +189,6 @@ def _build_steered_tm(cfg, h, g, steering, grid_j, delay_table, fs, min_bin,
         Y = gsc_rls_zelinski(
             Yr, energy, jnp.conj(vs), bm_b, vs, cfg.rls, cfg.pf_alpha,
             cfg.pf_type, cfg.pf_min_frames, per_utterance=True,
-            interpret=interpret,
         )
         return synthesis_half_tm(Y, gj, cfg.fb), grid_j[gidx]
 

@@ -175,16 +175,36 @@ def test_compile_cache_off_on_cpu(monkeypatch):
 
 
 _CACHE_PROBE = """
+import pathlib
 import sys
 import jax
 jax.config.update("jax_platforms", "cpu")
 jax.default_backend = lambda: "gpu"
 from distant_speech_recognition_tpu.utils import jaxenv
-jaxenv.DEFAULT_CACHE_DIR = sys.argv[1]
+jaxenv.DEFAULT_CACHE_DIR = pathlib.Path(sys.argv[1])
+if len(sys.argv) > 2:
+    jaxenv.host_key = lambda: sys.argv[2]
+hits = []
+jax.monitoring.register_event_listener(
+    lambda name, **kw: hits.append(name) if name.endswith("/cache_hits") else None)
 print(jaxenv.setup_compile_cache())
 jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
 jax.jit(lambda x: x * 2 + 1)(jax.numpy.ones(7)).block_until_ready()
+print(len(hits))
 """
+
+
+def _cache_probe(default, *key, env_dir=None):
+    """Run the probe in a fresh process: (cache directory, cache hits)."""
+    env = {k: v for k, v in os.environ.items() if k != "JAX_COMPILATION_CACHE_DIR"}
+    env["PYTHONPATH"] = ROOT
+    if env_dir is not None:
+        env["JAX_COMPILATION_CACHE_DIR"] = str(env_dir)
+    r = subprocess.run([sys.executable, "-c", _CACHE_PROBE, str(default), *key], env=env,
+                       cwd=str(default.parent), capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
+    path, hits = r.stdout.strip().splitlines()[-2:]
+    return path, int(hits)
 
 
 @pytest.mark.parametrize("env_set", [False, True])
@@ -192,17 +212,32 @@ def test_compile_cache_placement(env_set, tmp_path):
     """Unset: programs land in the checkout's default directory.  Set: they
     land in JAX_COMPILATION_CACHE_DIR and nowhere else."""
     default, chosen = tmp_path / "default", tmp_path / "chosen"
-    env = {k: v for k, v in os.environ.items() if k != "JAX_COMPILATION_CACHE_DIR"}
-    env["PYTHONPATH"] = ROOT
-    if env_set:
-        env["JAX_COMPILATION_CACHE_DIR"] = str(chosen)
-    r = subprocess.run([sys.executable, "-c", _CACHE_PROBE, str(default)], env=env,
-                       cwd=str(tmp_path), capture_output=True, text=True, timeout=300)
-    assert r.returncode == 0, r.stderr[-2000:]
+    path, _ = _cache_probe(default, env_dir=chosen if env_set else None)
     want, other = (chosen, default) if env_set else (default, chosen)
-    assert r.stdout.strip().splitlines()[-1] == str(want)
+    assert path == str(want)
     assert any(want.iterdir())
     assert not other.exists()
+
+
+@pytest.mark.parametrize("env_set", [False, True])
+def test_compile_cache_ignores_other_hosts(env_set, tmp_path):
+    """A program cached by a host with another CPU is not loaded (XLA:CPU
+    code is compiled for the host's instruction set), whichever directory
+    holds the cache."""
+    default = tmp_path / "default"
+    env_dir = tmp_path / "chosen" if env_set else None
+    assert _cache_probe(default, "other-host", env_dir=env_dir)[1] == 0
+    # the same host finds its entries again
+    assert _cache_probe(default, "other-host", env_dir=env_dir)[1] > 0
+    assert _cache_probe(default, env_dir=env_dir)[1] == 0
+
+
+def test_host_key_names_machine_and_is_stable():
+    import platform
+
+    key = jaxenv.host_key()
+    assert key.startswith(platform.machine() + "-")
+    assert key == jaxenv.host_key()
 
 
 def test_peaks_table_by_device_kind():
